@@ -4,8 +4,9 @@
     python -m cusift_tpu.cli slam [--tum DIR | --synthetic N] [--metrics out.jsonl]
     python -m cusift_tpu.cli sfm  [--synthetic N]
 
-Runs on whatever backend JAX selects (TPU when available).  With no input
-paths, ground-truth synthetic scenes are used so every command works in a
+Runs on whatever backend JAX selects (the GPU when one is present) and
+prints the platform and device kind first.  With no input paths,
+ground-truth synthetic scenes are used so every command works in a
 dataset-less environment.
 """
 
@@ -24,7 +25,8 @@ def _load_image(path: str) -> np.ndarray:
     from .utils import native_loader
     if path.endswith((".pgm", ".ppm", ".npy")) and native_loader.native_available():
         return native_loader.decode(path)
-    import cv2
+    from .utils.image import import_cv2
+    cv2 = import_cv2(f"reading {path} (.pgm/.ppm/.npy use the native loader)")
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise FileNotFoundError(path)
@@ -273,9 +275,6 @@ def cmd_odo(args):
     vo_cfg = (VOConfig(map_anchor=args.map_anchor, kf_evict=args.kf_evict,
                        sim3_gate=args.sim3_gate)
               if (args.loop or args.map_anchor) else None)
-    if args.dist:
-        from .parallel.mesh import init_distributed
-        init_distributed()
     vo = MonoVO(intr,
                 sift_cfg=SiftConfig(max_kpts=args.max_kpts,
                                     max_kpts_per_octave=args.max_kpts // 2),
@@ -345,7 +344,7 @@ def cmd_dist(args):
     """Multi-device pipeline: sharded extraction + distributed Schur BA.
 
     Exercises BASELINE configs[4]'s machinery on whatever devices exist —
-    a TPU slice, or a virtual CPU mesh via
+    the GPUs of one host, or a virtual CPU mesh via
     XLA_FLAGS=--xla_force_host_platform_device_count=N (SURVEY.md §4.4).
     Prints per-device-count timings so scaling efficiency is visible.
     """
@@ -354,12 +353,9 @@ def cmd_dist(args):
     from .config import BAConfig, SiftConfig
     from .data.synthetic import ba_problem, textured_image
     from .parallel.dist_ba import distributed_bundle_adjust, partition_by_landmark
-    from .parallel.mesh import init_distributed, make_mesh, map_mesh
+    from .parallel.mesh import make_mesh, map_mesh
     from .parallel.sharded import extract_frames
 
-    # multi-host bootstrap (no-op without JAX_COORDINATOR_ADDRESS): on a
-    # real pod slice every host runs this same command under the launcher
-    init_distributed()
     devs = jax.devices()
     counts = [n for n in (1, 2, 4, 8, 16) if n <= len(devs)]
     print(f"{len(devs)} device(s): {devs[0].platform}")
@@ -497,6 +493,14 @@ def main(argv=None):
     g.set_defaults(fn=cmd_dist)
 
     args = ap.parse_args(argv)
+    from .parallel.mesh import init_distributed
+    from .utils.device import device_info, enable_compile_cache
+    # multi-host bootstrap (no-op without JAX_COORDINATOR_ADDRESS) must
+    # precede the first backend query
+    init_distributed()
+    enable_compile_cache()
+    info = device_info()
+    print(f"device: {info['platform']} {info['kind']} x{info['count']}")
     args.fn(args)
 
 

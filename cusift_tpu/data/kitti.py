@@ -82,7 +82,8 @@ def load_images(seq_dir: str, max_frames: int | None = None,
             stream.close()
         return
 
-    import cv2
+    from ..utils.image import import_cv2
+    cv2 = import_cv2("reading KITTI PNG frames without the native loader")
     for p in paths:
         img = cv2.imread(p, cv2.IMREAD_GRAYSCALE)
         if img is not None:

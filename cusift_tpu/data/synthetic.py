@@ -16,11 +16,35 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+from scipy import ndimage
 
 from ..optim.lie import se3_exp
 
 # TUM fr1-like intrinsics (640x480)
 DEFAULT_INTR = np.array([517.3, 516.5, 318.6, 255.3], np.float32)
+
+
+def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Gaussian blur with mirrored borders and a 4-sigma kernel radius
+    (cv2.GaussianBlur's automatic kernel size and BORDER_REFLECT_101)."""
+    return ndimage.gaussian_filter(img, sigma, mode="mirror", truncate=4.0)
+
+
+def warp_perspective(img: np.ndarray, h_mat: np.ndarray, h: int,
+                     w: int) -> np.ndarray:
+    """[h, w] image of `img` under homography `h_mat` (source -> output).
+
+    Each output pixel reads the source bilinearly at H^-1 (x, y, 1), with
+    mirrored borders (cv2.warpPerspective with INTER_LINEAR and
+    BORDER_REFLECT_101).
+    """
+    yy, xx = np.mgrid[0:h, 0:w]
+    src = np.linalg.inv(h_mat) @ np.stack(
+        [xx.ravel(), yy.ravel(), np.ones(h * w)]).astype(np.float64)
+    coords = np.stack([src[1] / src[2], src[0] / src[2]])     # (row, col)
+    out = ndimage.map_coordinates(np.asarray(img, np.float32), coords,
+                                  order=1, mode="mirror")
+    return out.reshape(h, w)
 
 
 def textured_image(h: int, w: int, seed: int = 0, blobs: int = 160,
@@ -43,15 +67,11 @@ def textured_image(h: int, w: int, seed: int = 0, blobs: int = 160,
         a = rs.uniform(-0.6, 0.8)
         img += a * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s * s))
     if detail > 0:
-        try:
-            import cv2
-            for o in range(max(1, detail_octaves)):
-                noise = rs.normal(size=(h, w)).astype(np.float32)
-                band = (cv2.GaussianBlur(noise, (0, 0), 1.2 * 2.0 ** o)
-                        - cv2.GaussianBlur(noise, (0, 0), 3.0 * 2.0 ** o))
-                img += detail * band / max(band.std(), 1e-6)
-        except ImportError:
-            pass
+        for o in range(max(1, detail_octaves)):
+            noise = rs.normal(size=(h, w)).astype(np.float32)
+            band = (gaussian_blur(noise, 1.2 * 2.0 ** o)
+                    - gaussian_blur(noise, 3.0 * 2.0 ** o))
+            img += detail * band / max(band.std(), 1e-6)
     img = (img - img.min()) / (img.max() - img.min())
     return img.astype(np.float32)
 
@@ -59,7 +79,6 @@ def textured_image(h: int, w: int, seed: int = 0, blobs: int = 160,
 def warped_pair(h: int = 480, w: int = 640, seed: int = 0, blobs: int = 160,
                 detail: float = 0.0, detail_octaves: int = 1):
     """(img_a, img_b, H_true) with img_b = warp(img_a, H_true)."""
-    import cv2
     img = textured_image(h, w, seed=seed, blobs=blobs, detail=detail,
                          detail_octaves=detail_octaves)
     rs = np.random.default_rng(seed + 1)
@@ -71,8 +90,7 @@ def warped_pair(h: int = 480, w: int = 640, seed: int = 0, blobs: int = 160,
         [sa, ca, rs.uniform(-20, 20) - sa * w / 2 + (1 - ca) * h / 2],
         [rs.uniform(-5e-5, 5e-5), rs.uniform(-5e-5, 5e-5), 1.0],
     ], np.float64)
-    img_b = cv2.warpPerspective(img, h_true, (w, h), flags=cv2.INTER_LINEAR,
-                                borderMode=cv2.BORDER_REFLECT_101)
+    img_b = warp_perspective(img, h_true, h, w)
     return img, img_b.astype(np.float32), h_true
 
 
@@ -95,7 +113,7 @@ def planar_rgbd_sequence(n_frames: int = 12, h: int = 480, w: int = 640,
     """Camera orbiting in front of a textured plane z = plane_depth (world).
 
     The plane's image in any camera is an exact homography of the world
-    texture, so rendering uses cv2.warpPerspective and the depth map is
+    texture, so rendering is a perspective warp and the depth map is
     analytic: z(u, v) = plane-ray intersection.
 
     depth_noise > 0 perturbs the depth maps with multiplicative Gaussian
@@ -104,7 +122,6 @@ def planar_rgbd_sequence(n_frames: int = 12, h: int = 480, w: int = 640,
     reprojection BA (whose 2D observations carry no depth error) must
     measurably reduce trajectory error.
     """
-    import cv2
     fx, fy, cx, cy = DEFAULT_INTR
     k = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
     k_inv = np.linalg.inv(k)
@@ -132,8 +149,7 @@ def planar_rgbd_sequence(n_frames: int = 12, h: int = 480, w: int = 640,
         # homography from the reference view (identity cam) to this view for
         # the plane n.X = d (d = plane_depth > 0): H = K (R + t n^T / d) K^-1
         h_mat = k @ (r_wc + np.outer(t_wc, n_w) / plane_depth) @ k_inv
-        img_f = cv2.warpPerspective(tex, h_mat, (w, h), flags=cv2.INTER_LINEAR,
-                                    borderMode=cv2.BORDER_REFLECT_101)
+        img_f = warp_perspective(tex, h_mat, h, w)
         # analytic depth: ray r = K^-1 (u,v,1); plane in cam frame:
         # n_c = R n_w, d_c = d - n_w . (R^T t) ... use X_c = R X_w + t
         # world plane: n_w.X_w = plane_depth -> n_c^T X_c = d_c with
@@ -188,7 +204,6 @@ def two_plane_sequence(n_frames: int = 8, h: int = 480, w: int = 640,
     the 3-6 m planes) — long-sequence tests should raise `amplitude`
     roughly with n_frames to keep per-frame motion KITTI-like.
     """
-    import cv2
     # scale the fr1-like intrinsics to the render size (principal point
     # must stay centred for small test renders)
     intr = DEFAULT_INTR * np.array([w / 640.0, h / 480.0,
@@ -212,8 +227,7 @@ def two_plane_sequence(n_frames: int = 8, h: int = 480, w: int = 640,
         img_f, depth_f = _two_plane_render(r_wc, t_wc, tex, intr, h, w,
                                            near, far)
         if f in blur_set:
-            img_f = cv2.GaussianBlur(img_f.astype(np.float32), (0, 0),
-                                     blur_sigma)
+            img_f = gaussian_blur(img_f.astype(np.float32), blur_sigma)
         images.append(img_f.astype(np.float32))
         depths.append(depth_f.astype(np.float32))
         rots.append(r_wc)
@@ -275,7 +289,6 @@ def _two_plane_pose(f: int, n_frames: int, path: str, motion_scale: float,
 
 def _two_plane_render(r_wc, t_wc, tex, intr, h, w, near, far):
     """Render the two-plane world from one world-to-camera pose."""
-    import cv2
     fx, fy, cx, cy = intr
     k = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
     k_inv = np.linalg.inv(k)
@@ -288,9 +301,7 @@ def _two_plane_render(r_wc, t_wc, tex, intr, h, w, near, far):
     depth_f = np.zeros((h, w), np.float64)
     for plane_d, side in ((near, -1), (far, +1)):
         h_mat = k @ (r_wc + np.outer(t_wc, n_w) / plane_d) @ k_inv
-        warp = cv2.warpPerspective(tex[side], h_mat, (w, h),
-                                   flags=cv2.INTER_LINEAR,
-                                   borderMode=cv2.BORDER_REFLECT_101)
+        warp = warp_perspective(tex[side], h_mat, h, w)
         d_c = plane_d + n_c @ t_wc
         denom = rays @ n_c
         z = np.where(np.abs(denom) > 1e-9, d_c / denom, 0.0)

@@ -120,7 +120,8 @@ def load_tum(seq_dir: str, max_frames: int | None = None,
             dep_stream.close()
         return
 
-    import cv2
+    from ..utils.image import import_cv2
+    cv2 = import_cv2("reading TUM PNG frames without the native loader")
     for i, j in pairs:
         img = cv2.imread(os.path.join(seq_dir, rgb[i][1]), cv2.IMREAD_GRAYSCALE)
         d16 = cv2.imread(os.path.join(seq_dir, dep[j][1]), cv2.IMREAD_UNCHANGED)

@@ -21,7 +21,7 @@ def select_victim(mode: str, pose_r: np.ndarray, pose_t: np.ndarray,
     keeping the map's spatial coverage so revisits still retrieve;
     loop-anchored nodes are soft-penalised (additive 1e6), NOT excluded —
     a hard exclusion stalls insertion once closures are dense and
-    tracking degrades against a frozen ring (measured, BASELINE.md).
+    tracking degrades against a frozen ring (measured, 62f0428:BASELINE.md).
     "oldest" is FIFO (sliding-window odometry semantics); "none"
     disables eviction.  Slot 0 (the gauge origin) and the newest `guard`
     slots are never evicted; `pinned` (a chunked run's in-flight

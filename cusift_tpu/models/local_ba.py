@@ -5,8 +5,8 @@ round-1 SLAM backend only ran pose-graph optimisation on loop closure;
 this module bundle-adjusts the landmarks seen by the last W keyframes
 every time a keyframe is inserted (the standard local-BA backend step).
 
-TPU shape: the whole thing — cross-keyframe data association (descriptor
-matching on the MXU), landmark initialisation from the newest keyframe's
+Design: the whole thing — cross-keyframe data association (descriptor
+matching), landmark initialisation from the newest keyframe's
 RGB-D backprojections, and the LM/Schur/PCG solve (`optim/ba.py`) — is
 ONE jitted static-shape program over the fixed window [W, N, ...] slices
 of the keyframe ring.  One dispatch + one packed pose fetch per keyframe
@@ -46,7 +46,7 @@ def build_window_problem_union(kf_desc, kf_valid, kf_pts, poses_r, poses_t,
     each slot contributes exactly ONE observation (of its owner), so the
     observation count and Schur cost match the cheap form; only the
     landmark array grows W-fold ([W*N, 3] — trivial).  W(W-1)/2 extra
-    [N, N] MXU matches pay for the dedup.
+    [N, N] matches pay for the dedup.
     """
     w, n = kf_valid.shape
     fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]

@@ -4,7 +4,7 @@ New surface relative to the reference: cuSIFT's extract/match/rigid pieces
 composed into multi-view structure-from-motion: pairwise matching builds
 feature *tracks* (union-find over match edges, host-side graph logic),
 poses are chained from RGB-D rigid alignments, landmarks initialise from
-depth back-projection, and the whole problem is polished by the TPU Schur
+depth back-projection, and the whole problem is polished by the Schur
 BA (optim/ba.py).  The BA problem is a static-shape BAProblem, so repeated
 refinements reuse one compiled program.
 """

@@ -79,47 +79,24 @@ def _topk(feats: SiftFeatures, n: int) -> SiftFeatures:
 def _octave_planes(img: jnp.ndarray, cfg: SiftConfig):
     """Per octave: (sample_levels [S,H,W], dog [S+2,H,W], score [S,H,W]).
 
-    On TPU the fused Pallas octave kernel (ops/pallas/octave.py) computes
-    all three in one pass over the base level; elsewhere (or for octaves
-    too small for its halo) the XLA blur chain + dense extremum test is
-    used.  Both paths share the initial-level and seed conventions.
+    The blur chain builds the levels, the DoG is their difference, and the
+    dense extremum test scores every pixel.
     """
-    fused = cfg.fused_pyramid
-    if fused == "auto":
-        # measured on v5e: XLA's fused shifted-add convolutions are already
-        # near memory-bound (2.5 vs 3.0 ms/octave at 960x1280), so the
-        # Pallas octave kernel stays opt-in until its banded-matmul x-conv
-        # variant lands
-        fused = "xla"
-
     s_ = cfg.scales_per_octave
     n_oct = cfg.num_octaves_for(*img.shape)
     base = initial_level(img, cfg)
     out = []
     for _ in range(n_oct):
-        h, w = base.shape
-        if (fused in ("pallas", "pallas_hbm") and min(h, w) >= 64
-                and base.ndim == 2):
-            from ..ops.pallas.octave import fused_octave
-            hbm = fused == "pallas_hbm"
-            # off-TPU the Mosaic kernel runs in interpret mode so the
-            # wiring stays testable on the CPU suite
-            samp, dog, score = fused_octave(
-                base, cfg, h, w,
-                tr=cfg.fused_tile_rows if hbm else 48, hbm_out=hbm,
-                interpret=jax.default_backend() != "tpu")
-        else:
-            levels = octave_levels(base, cfg)
-            gauss = jnp.stack(levels)
-            dog = gauss[1:] - gauss[:-1]
-            samp = gauss[1:s_ + 1]
-            # scores only rank candidates into the static budget; bf16
-            # halves the HBM traffic of the dense window max/min stage
-            # (config.py score_dtype — opt-in, measured on chip first).
-            # Refinement gathers read the f32 DoG either way.
-            sdog = (dog.astype(jnp.bfloat16) if cfg.score_dtype == "bf16"
-                    else dog)
-            score = extrema_score(sdog, cfg)   # bf16 rides through top-k
+        levels = octave_levels(base, cfg)
+        gauss = jnp.stack(levels)
+        dog = gauss[1:] - gauss[:-1]
+        samp = gauss[1:s_ + 1]
+        # scores only rank candidates into the static budget; bf16 halves
+        # the bytes of the dense window max/min stage (config.py
+        # score_dtype).  Refinement gathers read the f32 DoG either way.
+        sdog = (dog.astype(jnp.bfloat16) if cfg.score_dtype == "bf16"
+                else dog)
+        score = extrema_score(sdog, cfg)   # bf16 rides through top-k
         out.append((samp, dog, score))
         base = downsample2(samp[s_ - 1])   # level S carries 2x sigma0 blur
     return out

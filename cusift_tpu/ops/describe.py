@@ -4,12 +4,12 @@ Reference analog: ``ExtractSiftDescriptors`` (SURVEY.md C10, hot loop #2):
 warp-parallel 16x16 rotated sampling with texture fetches, trilinear binning
 into 4x4 cells x 8 orientation bins, normalize -> clip 0.2 -> renormalize.
 
-TPU design (SURVEY.md §2.2 row 3, §7 "turn gathers into matmuls"): each
+Design (SURVEY.md §2.2 row 3, §7 "turn gathers into matmuls"): each
 (keypoint, orientation) slot samples a fixed G x G grid directly in the
 *rotated descriptor frame*, so the spatial trilinear weights are a static
 [G^2, 16] matrix known at trace time.  Only the 8-way orientation binning is
 data-dependent; the descriptor reduces to one einsum
-``[K, G^2, 8] x [G^2, 16] -> [K, 16, 8]`` that runs on the MXU.
+``[K, G^2, 8] x [G^2, 16] -> [K, 16, 8]``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..config import SiftConfig
 from .keypoints import Keypoints
@@ -111,53 +112,31 @@ def descriptors(gauss: jnp.ndarray, slots: Slots,
     xs = xo[:, None] + u * ct[:, None] - v * st[:, None]
     ys = yo[:, None] + u * st[:, None] + v * ct[:, None]
 
-    # rotated grid: worst-case row extent = d * cell_w * sqrt(2)
-    span = (cfg.desc_width * cfg.desc_scale_factor * cfg.sigma_oct_max
-            * 1.4143)
+    dx, dy, inb = sample_grad_pair(gauss, lvl, ys, xs)
+    mag = jnp.sqrt(dx * dx + dy * dy)
+    # Gradient direction rotated into the keypoint frame.  Negated
+    # (theta - grad) to match the classic descriptor's y-up angle
+    # convention (image rows grow downward here); validated against
+    # the cv2 oracle in tests/test_extract.py.
+    ang = th[:, None] - jnp.arctan2(dy, dx)
+    w = mag * gw[None, :] * inb                                # [KM, S]
 
-    method = cfg.sampler
-    if method == "auto":
-        method = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if method == "fused" and n % 8 == 0:
-        # OPT-IN fused kernel (sampling + rotated-frame binning + the
-        # spatial contraction in-register).  Measured SLOWER than the
-        # general sampler + XLA einsum on v5e (17.7 vs 11.1 ms desc
-        # stage): the per-slot [nb, S] binning and miniature [8,S]x[S,16]
-        # dot cost more in-kernel than the XLA-fused contraction they
-        # replace (docs/kernels.md)
-        from .pallas.sampler import sample_desc_raw
-        wv = jnp.broadcast_to(gw[None, :], ys.shape)
-        pr = -(-(int(span) + 12) // 8) * 8
-        pc = -(-(int(span) + 132) // 128) * 128
-        raw = sample_desc_raw(gauss, lvl, ys, xs, th, wv, w_spatial,
-                              nb=nb, cells=d * d, pr=pr, pc=pc,
-                              g=cfg.sampler_group)
-        desc = jnp.swapaxes(raw, 1, 2).reshape(n, d * d * nb)
-    else:
-        dx, dy, inb = sample_grad_pair(gauss, lvl, ys, xs,
-                                       span_rows=span, method=method,
-                                       group=cfg.sampler_group)
-        mag = jnp.sqrt(dx * dx + dy * dy)
-        # Gradient direction rotated into the keypoint frame.  Negated
-        # (theta - grad) to match the classic descriptor's y-up angle
-        # convention (image rows grow downward here); validated against
-        # the cv2 oracle in tests/test_extract.py.
-        ang = th[:, None] - jnp.arctan2(dy, dx)
-        w = mag * gw[None, :] * inb                            # [KM, S]
+    # Soft orientation binning as broadcast circular-distance weights
+    # (2 non-zeros per sample; no eye[...] gathers).
+    fbin = (ang / (2.0 * jnp.pi) * nb) % nb
+    bins = jnp.arange(nb, dtype=w.dtype)
+    dist = jnp.abs(fbin[..., None] - bins)                     # [N, S, nb]
+    dist = jnp.minimum(dist, nb - dist)
+    obin = jnp.maximum(0.0, 1.0 - dist)
+    contrib = obin * w[..., None]
 
-        # Soft orientation binning as broadcast circular-distance weights
-        # (2 non-zeros per sample; no eye[...] gathers).
-        fbin = (ang / (2.0 * jnp.pi) * nb) % nb
-        bins = jnp.arange(nb, dtype=w.dtype)
-        dist = jnp.abs(fbin[..., None] - bins)                 # [N, S, nb]
-        dist = jnp.minimum(dist, nb - dist)
-        obin = jnp.maximum(0.0, 1.0 - dist)
-        contrib = obin * w[..., None]
-
-        # MXU contraction: spatial cells x orientation bins.
-        desc = jnp.einsum("sc,ksb->kcb", w_spatial, contrib,
-                          preferred_element_type=jnp.float32)  # [N, 16, 8]
-        desc = desc.reshape(n, d * d * nb)
+    # Contraction over samples: spatial cells x orientation bins, in full
+    # f32 (HIGHEST) — the FLOPs are small, and TF32 products would put
+    # ~1e-3 relative noise into every descriptor entry.
+    desc = jnp.einsum("sc,ksb->kcb", w_spatial, contrib,
+                      precision=lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.float32)      # [N, 16, 8]
+    desc = desc.reshape(n, d * d * nb)
 
     # normalise -> clip -> renormalise (Lowe)
     norm = jnp.linalg.norm(desc, axis=-1, keepdims=True)

@@ -2,10 +2,10 @@
 
 Reference analog: the ``FindPointsMulti`` CUDA kernel (SURVEY.md C8):
 thread-per-pixel 26-neighbour extremum test, contrast/edge rejection, 3-D
-quadratic refinement, atomic append.  TPU design (SURVEY.md §2.2, §7):
+quadratic refinement, atomic append.  Design (SURVEY.md §2.2, §7):
 
 * the 26-neighbour test is one `lax.reduce_window` max/min over the
-  [S+2, H, W] DoG stack — dense, VPU-friendly, no divergence;
+  [S+2, H, W] DoG stack — dense elementwise work, no divergence;
 * candidates are compacted with `top_k` on |DoG| into a static
   per-octave budget (no atomics, no host sync);
 * quadratic refinement runs only on the compacted candidates: each
@@ -32,7 +32,8 @@ def _extrema_mask(dog: jnp.ndarray, prefilter: float) -> jnp.ndarray:
     dog is the full [S+2, H, W] stack; detection levels are 1..S.
     """
     # Separable 3x3x3 window max/min via shifted elementwise ops — three
-    # 3-tap passes fuse into one VPU loop, where a 3-D reduce_window does not.
+    # 3-tap passes fuse into one elementwise loop, where a 3-D
+    # reduce_window does not.
     def _win(x, op):
         x = op(op(x[:-2], x[1:-1]), x[2:])                     # scale axis
         x = op(op(x[:, :-2], x[:, 1:-1]), x[:, 2:])            # rows
@@ -53,17 +54,12 @@ def _extrema_mask(dog: jnp.ndarray, prefilter: float) -> jnp.ndarray:
 def _gather_cubes(dog: jnp.ndarray, lvl, y, x) -> jnp.ndarray:
     """One batched gather of 3x3x3 DoG neighbourhoods: [K, 3, 3, 3].
 
-    Nine lane-minor (1, 1, 3)-slice gathers (one per (dz, dy) of the
-    stencil): TPU gathers pay per INDEX, and a contiguous 3-wide slice in
-    the minor (lane) dimension is nearly free, so this fetches a cube
-    with 9K indices where the earlier 27-static-offset flat-take form
-    paid 27K (measured ~2x on v5e — the refinement was the largest
-    remaining stage).  Forms that lose badly and were measured out:
-    vmapped ``dynamic_slice`` / multi-dim (3,3,3)-slice gathers
-    (~25 ms/frame), a [K, 27] advanced-index gather (27-lane output pads
-    to 128 lanes), and a dense 10-channel derivative precompute (~250 MB
-    HBM per upscaled octave).  (lvl, y, x) are pre-clipped to the stack
-    interior, so every slice is in range.
+    Nine minor-dimension (1, 1, 3)-slice gathers (one per (dz, dy) of the
+    stencil): a contiguous 3-wide slice costs about one index, so this
+    fetches a cube with 9K indices where a 27-static-offset flat take
+    pays 27K.  A dense 10-channel derivative precompute would instead
+    write ~250 MB per upscaled octave.  (lvl, y, x) are pre-clipped to
+    the stack interior, so every slice is in range.
     """
     k = lvl.shape[0]
     dn = lax.GatherDimensionNumbers(offset_dims=(1,),
@@ -162,15 +158,15 @@ def detect_from_score(dog: jnp.ndarray, score: jnp.ndarray,
                       octave_idx: int, cfg: SiftConfig) -> Keypoints:
     """Compaction + refinement from a precomputed extrema score.
 
-    `score` may come from `extrema_score` (XLA path) or from the fused
-    Pallas octave kernel (ops/pallas/octave.py), which emits it directly.
+    `score` comes from `extrema_score`.
     """
     s, h, w = dog.shape
     k = cfg.kpt_budget(octave_idx)
     if cfg.approx_topk:
-        # TPU-optimised partial reduction; exact top-k costs a full sort of
-        # S*H*W scores per octave. 95% recall only perturbs which *weak*
-        # candidates fill the tail of the static budget.
+        # approximate top-k (recall target 0.95) where the backend
+        # implements it; exact top-k costs a full sort of S*H*W scores
+        # per octave.  95% recall only perturbs which *weak* candidates
+        # fill the tail of the static budget.
         flat_score, flat_idx = lax.approx_max_k(score.reshape(-1), k,
                                                 recall_target=0.95)
     else:

@@ -6,13 +6,12 @@ the depth-free BASELINE configs[4] (KITTI monocular odometry) reachable:
 
 * batched normalised-8-point hypotheses in the exact shape of
   ``ops/ransac.py:find_homography`` (one `vmap` over static one-hot
-  minimal samples — the TPU analog of the reference's
+  minimal samples — the batched analog of the reference's
   thread-per-hypothesis ``ComputeHomographies`` kernel, SURVEY.md C13);
 * the 9x9 null-space solve is an inverse power iteration on the
   ridge-regularised normal matrix using the statically-unrolled Cholesky
-  (`ops/mat3.py:solve_spd`) — pure VPU math that vmaps over the
-  hypothesis batch (no batched SVD, which lowers to slow iterative
-  kernels on TPU);
+  (`ops/mat3.py:solve_spd`) — elementwise math that vmaps over the
+  hypothesis batch (no batched SVD, which lowers to iterative kernels);
 * Sampson-error scoring, IRLS re-solve on the winner's inliers;
 * closed-form decomposition into (R, t) with a cheirality vote over all
   four candidates via batched midpoint triangulation.
@@ -110,8 +109,8 @@ def triangulate_midpoint(r: jnp.ndarray, t: jnp.ndarray,
     Rays: camera A at the origin with directions (xa, 1); camera B's
     centre in the A frame is c = -R^T t with directions R^T (xb, 1).
     Minimising ||za*da - (c + zb*db)||^2 is a closed-form 2x2 solve per
-    correspondence — pure VPU math, exactly the "small dense solves stay
-    unrolled" pattern of docs/kernels.md.
+    correspondence — elementwise math, the "small dense solves stay
+    unrolled" pattern of ops/mat3.py.
 
     Returns (points [N, 3] in the A frame, depth_a [N], depth_b [N]);
     depths are the z-coordinates in their own camera (cheirality test).
@@ -138,7 +137,7 @@ def decompose_essential(e: jnp.ndarray, xa: jnp.ndarray, xb: jnp.ndarray,
     """(R, t) from E with a cheirality vote over the four candidates.
 
     The single winner matrix affords one true 3x3 SVD (not vmapped, so
-    the iterative TPU SVD cost is paid once, unlike the hypothesis batch).
+    the iterative SVD cost is paid once, unlike the hypothesis batch).
     Returns (r, t, n_good) where n_good is the winning candidate's count
     of correspondences triangulating in front of BOTH cameras.
     """

@@ -1,12 +1,10 @@
-"""Separable Gaussian filtering on TPU.
+"""Separable Gaussian filtering.
 
 Reference analog: cuSIFT's ``LowPass`` / ``LaplaceMulti`` CUDA kernels
 (SURVEY.md C5–C7) keep filter taps in ``__constant__`` memory and tile the
-image with shared-memory halos.  On TPU the idiomatic form is a depthwise
-separable convolution lowered through XLA (`lax.conv_general_dilated`), which
-the compiler tiles onto VMEM itself; taps are compile-time constants baked
-into the HLO.  A fused Pallas multi-level variant lives in
-``ops/pallas/octave.py`` for the perf endgame.
+image with shared-memory halos.  Here the filter is a separable sum of
+shifted slices with the taps baked into the HLO as compile-time constants,
+which XLA fuses into one elementwise loop per pass.
 """
 
 from __future__ import annotations
@@ -18,6 +16,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
+
+
+# banded-matmul convs ("mxu", "mxu2") run in full f32: see _conv1d_mxu
+CONV_PRECISION = lax.Precision.HIGHEST
 
 
 def gaussian_taps(sigma: float, radius: int | None = None) -> np.ndarray:
@@ -46,11 +48,11 @@ def _reflect_pad(img: jnp.ndarray, r: int, axis: int) -> jnp.ndarray:
 def _conv1d(img: jnp.ndarray, taps: np.ndarray, axis: int) -> jnp.ndarray:
     """Correlate a [..., H, W] image with static taps along `axis`.
 
-    Implemented as a statically-unrolled sum of shifted slices (VPU FMAs)
-    rather than `lax.conv`: a 1-channel convolution on TPU pads the feature
-    dimension to the 128-lane MXU width, multiplying memory traffic ~128x.
-    Shifted slices of a padded array are contiguous views that XLA fuses
-    into a single elementwise loop — measured ~20x faster for the pyramid.
+    Implemented as a statically-unrolled sum of shifted slices rather than
+    `lax.conv`: a 1-channel convolution leaves a convolution library with
+    no channel dimension to vectorise over, while shifted slices of a
+    padded array are contiguous views that XLA fuses into a single
+    elementwise loop.  Exact f32 arithmetic.
     """
     r = (taps.shape[0] - 1) // 2
     x = _reflect_pad(img, r, axis)
@@ -79,17 +81,14 @@ def _band_matrix(taps: np.ndarray, block: int = 128) -> np.ndarray:
 
 def _conv1d_mxu(img: jnp.ndarray, taps: np.ndarray, axis: int,
                 block: int = 128) -> jnp.ndarray:
-    """Separable conv as blocked banded MXU matmuls.
+    """Separable conv as blocked banded matmuls.
 
-    The VPU shifted-add form (`_conv1d`) is instruction-issue-bound on
-    v5e (~2.5 ms per 960x1280 octave while its HBM traffic is worth
-    ~0.2 ms): each tap is one vector instruction per 8x128 register.  A
-    128-wide output block instead contracts its [block + 2r] input
-    window against a static banded [block+2r, block] operator on the
-    MXU at precision HIGH (bf16x3 passes, ~1e-7 relative — safe for the
-    downstream DoG differences, unlike a single bf16 pass).  FLOP count
-    rises ~(2r+1)/3-fold over the dense-band minimum but the MXU rate
-    dwarfs the VPU issue rate.
+    A 128-wide output block contracts its [block + 2r] input window
+    against a static banded [block+2r, block] operator.  The FLOP count
+    rises ~(2r+1)/3-fold over the shifted-add form in exchange for
+    running on a matrix unit.  Precision is pinned to HIGHEST (full f32):
+    the downstream DoG differences cancel most of the blurred value, so a
+    TF32 or single bf16 pass (~1e-3 relative) would swamp them.
     """
     r = (taps.shape[0] - 1) // 2
     ax = axis % img.ndim
@@ -113,14 +112,14 @@ def _conv1d_mxu(img: jnp.ndarray, taps: np.ndarray, axis: int,
 
     if ax == img.ndim - 1:
         out = jnp.einsum("...k,kc->...c", w, t,
-                         precision=jax.lax.Precision.HIGH,
+                         precision=CONV_PRECISION,
                          preferred_element_type=jnp.float32)
         out = jnp.moveaxis(out, 0, -2)                         # [..., nb, B]
         out = out.reshape(out.shape[:-2] + (nb * block,))
     else:
         assert ax == img.ndim - 2
         out = jnp.einsum("...kw,kc->...cw", w, t,
-                         precision=jax.lax.Precision.HIGH,
+                         precision=CONV_PRECISION,
                          preferred_element_type=jnp.float32)
         out = jnp.moveaxis(out, 0, -3)                         # [..., nb, B, W]
         out = out.reshape(out.shape[:-3] + (nb * block,) + out.shape[-1:])
@@ -169,7 +168,7 @@ def _conv1d_windows(x: jnp.ndarray, tmats: jnp.ndarray, r: int, axis: int,
     rhs = "lkc" if multi else "kc"
     out_axes = ("l" if multi else "") + ("...nc" if last else "...ncw")
     out = jnp.einsum(f"{lhs},{rhs}->{out_axes}", wst, tmats,
-                     precision=jax.lax.Precision.HIGH,
+                     precision=CONV_PRECISION,
                      preferred_element_type=jnp.float32)
     if last:
         out = out.reshape(out.shape[:-2] + (nb * block,))
@@ -199,20 +198,15 @@ _CONVS = {"vpu": _conv1d, "mxu": _conv1d_mxu, "mxu2": _conv1d_mxu2}
 
 
 def blur(img: jnp.ndarray, sigma: float, radius: int | None = None,
-         backend: str = "auto") -> jnp.ndarray:
+         backend: str = "vpu") -> jnp.ndarray:
     """Separable Gaussian blur of a [..., H, W] image; sigma is static.
 
-    backend: "auto" (MXU banded matmuls on TPU, VPU shifted adds
-    elsewhere), "mxu", "mxu2" (window stacking in output layout), or
-    "vpu".  "auto" resolves to "mxu2" on TPU: the output-layout window
-    stacking measured ~3% faster than "mxu" on the chip (round-3
-    pyr_probe, docs/kernels.md dense-stage table row B).
+    backend: "vpu" (shifted adds), "mxu" (banded matmuls), or "mxu2"
+    (banded matmuls with window stacking in output layout).
     """
     if float(sigma) <= 0.0:
         return img
     taps = gaussian_taps(sigma, radius)
-    if backend == "auto":
-        backend = "mxu2" if jax.default_backend() == "tpu" else "vpu"
     conv = _CONVS[backend]
     return conv(conv(img, taps, axis=-2), taps, axis=-1)
 

@@ -76,7 +76,7 @@ def solve_homography(pa: jnp.ndarray, pb: jnp.ndarray, w: jnp.ndarray) -> jnp.nd
     ww = jnp.concatenate([w, w], 0)[:, None]
     ata = (a * ww).T @ a + 1e-10 * jnp.eye(8)
     atb = (a * ww).T @ b
-    h8 = solve_spd(ata, atb)   # unrolled Cholesky: vmaps as pure VPU math
+    h8 = solve_spd(ata, atb)   # unrolled Cholesky: vmaps as elementwise math
     hn = jnp.concatenate([h8, jnp.ones(1)]).reshape(3, 3)
     h = inv3(tb) @ hn @ ta   # closed-form adjugate, no LU
     return h / jnp.where(jnp.abs(h[2, 2]) > 1e-12, h[2, 2], 1e-12)
@@ -89,11 +89,10 @@ def procrustes(pa: jnp.ndarray, pb: jnp.ndarray, w: jnp.ndarray,
 
     Horn's quaternion method: R comes from the principal eigenvector of a
     symmetric 4x4 built from the cross-covariance, found by a statically
-    unrolled shifted power iteration — pure VPU math that vmaps over
-    RANSAC's hypothesis batch.  The SVD form (Kabsch) costs ~10 ms for
-    1024 vmapped 3x3 SVDs on v5e (TPU SVD is iterative); this is ~10x
-    cheaper at equal accuracy, and always yields a proper rotation
-    (det = +1) with no reflection fix-up.
+    unrolled shifted power iteration — elementwise math that vmaps over
+    RANSAC's hypothesis batch, where the SVD form (Kabsch) would run 1024
+    iterative 3x3 SVDs.  Equal accuracy, and it always yields a proper
+    rotation (det = +1) with no reflection fix-up.
 
     pa, pb: [N, 3]; w: [N] non-negative weights.
     """
@@ -115,7 +114,7 @@ def rotation_from_cross_covariance(s_: jnp.ndarray,
     The quaternion-eigenvector core of Horn's method, shared by
     `procrustes` (S = weighted cross-covariance of two point clouds) and
     `ops/pnp.py` (nearest rotation to a projective 3x3: S = M^T).  Always
-    a proper rotation; pure VPU math that vmaps over hypothesis batches.
+    a proper rotation; elementwise math that vmaps over hypothesis batches.
     """
     sxx, sxy, sxz = s_[0, 0], s_[0, 1], s_[0, 2]
     syx, syy, syz = s_[1, 0], s_[1, 1], s_[1, 2]

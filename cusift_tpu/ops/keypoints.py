@@ -1,8 +1,8 @@
 """Static-capacity keypoint buffers (struct-of-arrays).
 
 Reference analog: the ``SiftPoint``/``SiftData`` POD structs and the
-atomic-append ``d_PointCounter`` device counter (SURVEY.md C4, C8).  TPU has
-no atomics-into-global-buffer idiom and XLA wants static shapes, so the
+atomic-append ``d_PointCounter`` device counter (SURVEY.md C4, C8).  XLA
+has no atomics-into-global-buffer idiom and wants static shapes, so the
 variable-length keypoint list becomes a fixed-capacity struct-of-arrays with
 a validity mask; "append" becomes top-k compaction by detection response
 (SURVEY.md §7 design decision #1).  Invalid lanes carry zeros and must be

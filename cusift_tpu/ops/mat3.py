@@ -1,8 +1,8 @@
 """Closed-form 3x3 linear algebra (det / inverse / solve).
 
 `jnp.linalg.inv` lowers through a general LU factorisation — a poor fit for
-huge batches of tiny matrices on TPU (compile-time and runtime overhead).
-Cofactor expansion is ~30 fused VPU flops per matrix and vectorises over any
+huge batches of tiny matrices (compile-time and runtime overhead).
+Cofactor expansion is ~30 fused elementwise flops per matrix and vectorises over any
 leading batch dims.  Used by the DoG quadratic refinement (ops/detect.py)
 and the landmark-block inverses in BA (optim/ba.py).
 """
@@ -61,8 +61,8 @@ def solve_spd(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
     Statically unrolled over n (intended n <= ~10): every step is an
     elementwise op over the batch, so a vmapped 1024-hypothesis RANSAC
-    solve stays pure VPU math — `jnp.linalg.solve`'s batched LU costs
-    ~7 ms for 1024 8x8 systems on v5e.  Callers must regularise A
+    solve stays elementwise math instead of `jnp.linalg.solve`'s batched
+    LU.  Callers must regularise A
     (ridge) so positive-definiteness holds; degenerate systems produce
     finite garbage that downstream scoring rejects.
     """

@@ -1,12 +1,11 @@
-"""Brute-force descriptor matching on the MXU.
+"""Brute-force descriptor matching as one matmul plus a top-2 per row.
 
 Reference analog: ``MatchSiftData`` (SURVEY.md C12, hot loop #3) — a
 hand-rolled shared-memory tiled GEMM over 128-d descriptors plus per-row
-best/second-best reduction.  On TPU this is literally
-``A @ B.T`` on the systolic array followed by `top_k(2)` per row; the whole
-matcher is ~10 lines and runs at matmul speed-of-light.  A fused Pallas
-variant that never materialises the [N, M] similarity matrix in HBM lives in
-``ops/pallas/matcher.py``.
+best/second-best reduction.  Here it is ``A @ B.T`` followed by two max
+passes.  On the GPU, large pair batches go to the fused Pallas kernel in
+``ops/pallas/matcher.py``, which never writes the [N, M] similarity matrix
+to device memory.
 """
 
 from __future__ import annotations
@@ -16,8 +15,14 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..config import MatchConfig
+
+# TF32 products with f32 accumulation on the GPU's tensor cores (plain f32
+# on the CPU).  Correlations of unit descriptors then carry ~1e-4 absolute
+# error, far below the gaps the 0.8 ratio test separates.
+MATCH_PRECISION = lax.Precision.HIGH
 
 
 class Matches(NamedTuple):
@@ -30,6 +35,43 @@ class Matches(NamedTuple):
     ok: jnp.ndarray     # [N] passed validity + ratio test (+ cross-check)
 
 
+# "auto" takes the fused kernel for pair batches of at least this many
+# query rows (pairs x slots).  Every block of 128 rows walks all of B, so
+# below ~64 blocks the kernel's time stays at one block's walk while XLA's
+# keeps falling: on an H100 the two tie at 6-7 k rows and XLA wins at
+# 4 k and fewer (chip_smoke.py phase 3, docs/kernels.md).
+KERNEL_MIN_ROWS = 8192
+
+
+def resolve_backend(cfg: MatchConfig, rows: int) -> str:
+    """The backend for `rows` query rows (pairs x slots of A).
+
+    "auto" picks the fused kernel on the GPU for large pair batches and
+    XLA otherwise.
+    """
+    if cfg.backend != "auto":
+        return cfg.backend
+    if jax.default_backend() == "gpu" and rows >= KERNEL_MIN_ROWS:
+        return "triton"
+    return "xla"
+
+
+def xla_top2(a, b, valid_b, precision=MATCH_PRECISION):
+    """(s1, s2, i1) of [P, N, D] against [P, M, D] through the full matrix.
+
+    The plain reference of the fused kernel (ops/pallas/matcher.py:top2).
+    """
+    sim = jnp.einsum("pnd,pmd->pnm", a, b, precision=precision,
+                     preferred_element_type=jnp.float32)
+    sim = jnp.where(valid_b[:, None, :], sim, -jnp.inf)      # mask dead cols
+    # max/argmax plus a masked second max: `lax.top_k` would sort each row
+    s1 = jnp.max(sim, axis=-1)
+    i1 = jnp.argmax(sim, axis=-1).astype(jnp.int32)
+    cols = lax.broadcasted_iota(jnp.int32, sim.shape, 2)
+    s2 = jnp.max(jnp.where(cols == i1[..., None], -jnp.inf, sim), axis=-1)
+    return s1, s2, i1
+
+
 @partial(jax.jit, static_argnames=("cfg", "interpret"))
 def match(desc_a: jnp.ndarray, valid_a: jnp.ndarray,
           desc_b: jnp.ndarray, valid_b: jnp.ndarray,
@@ -37,42 +79,25 @@ def match(desc_a: jnp.ndarray, valid_a: jnp.ndarray,
           interpret: bool = False) -> Matches:
     """Ratio-test matching of [N, 128] against [M, 128] unit descriptors.
 
-    ``interpret`` runs the Pallas kernel in interpret mode (CPU tests of the
-    pallas/cross-check branch only; never set on TPU).
+    A leading pair axis ([P, N, 128] against [P, M, 128]) matches P pairs
+    in one call; every output then carries the same leading axis.
+    ``interpret`` runs the Pallas kernel on the CPU (tests only).
     """
-    backend = cfg.backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    # The kernel replicates the non-query side into VMEM; with cross_check
-    # BOTH sides take a turn as the replicated operand, so the guard must
-    # cover the larger of the two (an asymmetric large-A/small-B call would
-    # otherwise blow the VMEM budget on the reverse pass).
-    vmem_limit = max(desc_a.shape[0], desc_b.shape[0]) if cfg.cross_check \
-        else desc_b.shape[0]
-    if vmem_limit > 8192:
-        backend = "xla"  # replicated side would not fit VMEM in the kernel
-
-    if backend == "pallas":
-        # fused MXU matmul + in-VMEM top-2: the [N, M] similarity matrix
-        # never round-trips through HBM (ops/pallas/matcher.py)
-        from .pallas.matcher import _pallas_top2
-        top, i1 = _pallas_top2(desc_a, desc_b, valid_b, interpret)
-        s1, s2 = top[:, 0], top[:, 1]
+    single = desc_a.ndim == 2
+    if single:
+        desc_a, valid_a, desc_b, valid_b = (
+            x[None] for x in (desc_a, valid_a, desc_b, valid_b))
+    n = desc_a.shape[1]
+    if resolve_backend(cfg, desc_a.shape[0] * n) == "triton":
+        from .pallas.matcher import top2
+        s1, s2, i1 = top2(desc_a, desc_b, valid_b, interpret=interpret)
         if cfg.cross_check:
-            _, best_for_b = _pallas_top2(desc_b, desc_a, valid_a, interpret)
+            _, _, best_for_b = top2(desc_b, desc_a, valid_a,
+                                    interpret=interpret)
     else:
-        sim = jnp.dot(desc_a, desc_b.T, preferred_element_type=jnp.float32)
-        sim = jnp.where(valid_b[None, :], sim, -jnp.inf)       # mask dead cols
-        # best + second-best via two dense max passes: `lax.top_k` sorts
-        # each row (~10 ms at 4096x4096 on v5e); max/argmax are plain VPU
-        # reductions.
-        s1 = jnp.max(sim, axis=-1)
-        i1 = jnp.argmax(sim, axis=-1).astype(jnp.int32)
-        cols = jax.lax.broadcasted_iota(jnp.int32, sim.shape, 1)
-        s2 = jnp.max(jnp.where(cols == i1[:, None], -jnp.inf, sim), axis=-1)
+        s1, s2, i1 = xla_top2(desc_a, desc_b, valid_b)
         if cfg.cross_check:
-            sim_m = jnp.where(valid_a[:, None], sim, -jnp.inf)
-            best_for_b = jnp.argmax(sim_m, axis=0)              # [M]
+            _, _, best_for_b = xla_top2(desc_b, desc_a, valid_a)
 
     # unit vectors: d^2 = 2 - 2 * <a, b>.  Clamp the correlations to the
     # valid [-1, 1] range first: masked lanes carry -inf, and inf/inf in
@@ -87,6 +112,7 @@ def match(desc_a: jnp.ndarray, valid_a: jnp.ndarray,
     ok = (valid_a & jnp.isfinite(s1) & jnp.isfinite(s2)
           & (ratio < cfg.ratio_thresh) & (s1 > cfg.min_score))
     if cfg.cross_check:
-        ok = ok & (best_for_b[i1] == jnp.arange(desc_a.shape[0]))
-    return Matches(idx=i1, dist=d1,
-                   score=s1, ratio=ratio, ok=ok)
+        back = jnp.take_along_axis(best_for_b, i1, axis=1)
+        ok = ok & (back == jnp.arange(n)[None, :])
+    out = Matches(idx=i1, dist=d1, score=s1, ratio=ratio, ok=ok)
+    return jax.tree.map(lambda x: x[0], out) if single else out

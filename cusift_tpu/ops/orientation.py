@@ -3,7 +3,7 @@
 Reference analog: ``ComputeOrientations`` (SURVEY.md C9): block-per-keypoint,
 32-bin histogram of Gaussian-weighted gradient directions, dominant peak plus
 secondary peaks >= 80% emit up to two orientations via atomic keypoint
-duplication.  TPU design: every keypoint samples a *fixed* G x G grid over
+duplication.  Here every keypoint samples a *fixed* G x G grid over
 its circular support (batched bilinear gather), soft-assigns angles to a
 36-bin histogram with a vectorised scatter-add, and the "duplication" becomes
 a static second orientation slot per keypoint with its own validity mask —
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from ..config import SiftConfig
 from .keypoints import Keypoints
@@ -50,56 +51,34 @@ def orientation_histograms(gauss: jnp.ndarray, kps: Keypoints,
     radius = cfg.ori_radius_factor * sigma_oct                 # [K]
     # the grid is axis-aligned and square: its S = g*g samples factor
     # into g distinct rows x g distinct cols (row-major, matching
-    # _grid_offsets' meshgrid-ij ravel), unlocking the separable sampler
+    # _grid_offsets' meshgrid-ij ravel)
     c1d = jnp.asarray((np.arange(g, dtype=np.float32) + 0.5) / g * 2.0 - 1.0)
     ys_rows = kps.yo[:, None] + radius[:, None] * c1d[None, :]  # [K, g]
     xs_cols = kps.xo[:, None] + radius[:, None] * c1d[None, :]
     lvl = jnp.clip(kps.level - level_base, 0, gauss.shape[0] - 1)
-
-    span = 2.0 * cfg.ori_radius_factor * cfg.sigma_oct_max
 
     # Gaussian weight over the circular support; r in units of sigma.
     r2 = (offs[None, :, 0] ** 2 + offs[None, :, 1] ** 2) * (cfg.ori_radius_factor ** 2)
     wgt = jnp.exp(-r2 / (2.0 * cfg.ori_sigma_factor ** 2))
     wgt = wgt * (r2 <= cfg.ori_radius_factor ** 2)             # circular mask
 
-    method = cfg.sampler
-    if method == "auto":
-        import jax
-        method = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if method == "fused" and kps.yo.shape[0] % 8 == 0:
-        # OPT-IN fused kernel (sampling + polar decomposition + circular
-        # binning in-register).  Measured NEUTRAL vs the general sampler
-        # + XLA binning on v5e (10.1 vs 10.6 ms ori stage, within run
-        # noise): XLA already fuses the [K, S, nb] one-hot contraction,
-        # so removing it from HBM buys nothing (docs/kernels.md)
-        from .pallas.sampler import sample_ori_hist
-        kk, gg = kps.yo.shape[0], g
-        ys = jnp.broadcast_to(ys_rows[:, :, None], (kk, gg, gg)).reshape(kk, -1)
-        xs = jnp.broadcast_to(xs_cols[:, None, :], (kk, gg, gg)).reshape(kk, -1)
-        wv = wgt[0] * kps.valid[:, None]                       # [K, S]
-        pr = -(-(int(span) + 12) // 8) * 8
-        pc = -(-(int(span) + 132) // 128) * 128
-        hist = sample_ori_hist(gauss, lvl, ys, xs, wv, nb, pr=pr, pc=pc,
-                               g=cfg.sampler_group)
-        return _smooth_hist(hist)
-
-    dx, dy, inb = sample_grad_grid(gauss, lvl, ys_rows, xs_cols,
-                                   span_rows=span, method=method,
-                                   group=cfg.sampler_group)
+    dx, dy, inb = sample_grad_grid(gauss, lvl, ys_rows, xs_cols)
     mag = jnp.sqrt(dx * dx + dy * dy)
     ang = jnp.arctan2(dy, dx)                                  # [-pi, pi]
     w = mag * wgt * inb * kps.valid[:, None]                   # [K, S]
 
     # Soft 2-bin assignment as a broadcast contraction: the linear-interp
     # weight of sample s toward bin b is max(0, 1 - circ_dist(fbin, b)) —
-    # pure VPU math, no scatters and no eye[...] gathers.
+    # elementwise math, no scatters and no eye[...] gathers.  The
+    # contraction runs at HIGHEST (full f32): a TF32 pass would round the
+    # bin weights to ~1e-3 and shift the parabolic peak refinement.
     fbin = (ang / (2.0 * jnp.pi) * nb) % nb                    # [K, S]
     bins = jnp.arange(nb, dtype=w.dtype)
     dist = jnp.abs(fbin[..., None] - bins)                     # [K, S, nb]
     dist = jnp.minimum(dist, nb - dist)                        # circular
     onehot = jnp.maximum(0.0, 1.0 - dist)
     hist = jnp.einsum("ks,ksb->kb", w, onehot,
+                      precision=lax.Precision.HIGHEST,
                       preferred_element_type=jnp.float32)
     return _smooth_hist(hist)
 

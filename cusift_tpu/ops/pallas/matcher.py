@@ -1,16 +1,26 @@
-"""Fused Pallas descriptor matcher: sim matmul + top-2 without HBM round-trip.
+"""Fused descriptor matcher for Hopper: similarity tiles + running top-2.
 
 Reference analog: the shared-memory tiled GEMM + reduction in
-``MatchSiftPoints*`` / ``FindMaxCorr`` (SURVEY.md C12).  The XLA version in
-ops/match.py materialises the [N, M] similarity matrix in HBM between the
-matmul and the top-k (64 MB at 4096x4096 f32 — ~160 us of pure HBM traffic
-at v5e bandwidth).  This kernel keeps each [TN, M] similarity block in VMEM:
-one MXU dot per grid step, row-wise best/second-best reduced in-register,
-only [N, 3]-sized results ever leave the chip.
+``MatchSiftPoints*`` / ``FindMaxCorr`` (SURVEY.md C12).  The XLA path in
+ops/match.py writes the [N, M] f32 similarity matrix to device memory and
+reads it back twice (max/argmax, then the masked second max).  Here each
+block owns ``BN`` query rows of one pair, keeps its [BN, 128] query tile
+resident, and walks B in ``BM``-column tiles: one tensor-core product per
+tile, reduced straight into a running (best, best index, second best) in
+registers.  Only [P, N]-sized results reach device memory.
 
-The B matrix (transposed, [128, M]) is replicated into VMEM across grid
-steps — for M <= ~8192 it fits comfortably (4 MB at M=8192); larger M falls
-back to the XLA path at the call site.
+Route: Pallas through Triton (``backend="triton"``).  The grid is
+(pair, row block), so the 7 consecutive pairs of an 8-frame batch fill the
+card's 132 SMs together where one pair's 48 row blocks at N = 6144 would
+not; ops/match.py sends smaller batches to XLA.  Tiles of 128 x 128 with
+8 warps and 2 stages were the fastest of five settings timed on an H100
+(docs/kernels.md).
+
+Precision: f32 operands with TF32 products (``Precision.HIGH``) and f32
+accumulation — the same setting as the XLA path, so the two agree up to
+summation order.
+
+Nothing differentiates through matching, so there is no gradient rule.
 """
 
 from __future__ import annotations
@@ -19,78 +29,84 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ...config import MatchConfig
-from ..match import Matches
-
-_TN = 256  # query rows per grid step
-
-
-def _kernel(a_ref, bt_ref, vb_ref, top_ref, idx_ref):
-    sim = jnp.dot(a_ref[:], bt_ref[:], preferred_element_type=jnp.float32)
-    sim = jnp.where(vb_ref[:] > 0.0, sim, -jnp.inf)        # [TN, M]
-    s1 = jnp.max(sim, axis=-1)
-    i1 = jnp.argmax(sim, axis=-1).astype(jnp.int32)
-    cols = jax.lax.broadcasted_iota(jnp.int32, sim.shape, 1)
-    sim2 = jnp.where(cols == i1[:, None], -jnp.inf, sim)
-    s2 = jnp.max(sim2, axis=-1)
-    top_ref[:] = jnp.stack([s1, s2], axis=-1)
-    idx_ref[:] = i1[:, None]
+BN = 128      # query rows per block
+BM = 128      # B columns per inner-loop tile
+NUM_WARPS = 8
+NUM_STAGES = 2
 
 
-def _pallas_top2(desc_a: jnp.ndarray, desc_b: jnp.ndarray,
-                 valid_b: jnp.ndarray, interpret: bool = False):
-    n, d = desc_a.shape
-    m = desc_b.shape[0]
-    pad_n = (-n) % _TN
-    a = jnp.pad(desc_a, ((0, pad_n), (0, 0)))
-    grid = ((n + pad_n) // _TN,)
-    top, idx = pl.pallas_call(
-        _kernel,
-        grid=grid,
+def _top2_kernel(a_ref, b_ref, vb_ref, s1_ref, s2_ref, i1_ref, *,
+                 n_tiles: int):
+    a = a_ref[...]                                         # [BN, D]
+
+    def body(j, carry):
+        s1, i1, s2 = carry
+        cols = pl.ds(j * BM, BM)
+        b = b_ref[cols, :]                                 # [BM, D]
+        vb = vb_ref[cols]                                  # [BM]
+        sim = pl.dot(a, b, trans_b=True, precision=lax.Precision.HIGH)
+        sim = jnp.where(vb[None, :] > 0, sim, -jnp.inf)    # [BN, BM]
+        col = j * BM + lax.broadcasted_iota(jnp.int32, (BN, BM), 1)
+        t1 = jnp.max(sim, axis=1)
+        # first column attaining the tile max (argmax tie order)
+        ti = jnp.min(jnp.where(sim == t1[:, None], col, jnp.int32(2**30)),
+                     axis=1)
+        t2 = jnp.max(jnp.where(col == ti[:, None], -jnp.inf, sim), axis=1)
+        # strict >: an earlier tile keeps a tie, as argmax keeps the first
+        better = t1 > s1
+        s2 = jnp.where(better, jnp.maximum(s1, t2), jnp.maximum(s2, t1))
+        i1 = jnp.where(better, ti, i1)
+        s1 = jnp.maximum(s1, t1)
+        return s1, i1, s2
+
+    init = (jnp.full((BN,), -jnp.inf, jnp.float32),
+            jnp.zeros((BN,), jnp.int32),
+            jnp.full((BN,), -jnp.inf, jnp.float32))
+    s1, i1, s2 = lax.fori_loop(0, n_tiles, body, init)
+    s1_ref[...] = s1
+    s2_ref[...] = s2
+    i1_ref[...] = i1
+
+
+@partial(jax.jit, static_argnames=("interpret",))
+def top2(desc_a: jnp.ndarray, desc_b: jnp.ndarray, valid_b: jnp.ndarray, *,
+         interpret: bool = False):
+    """Best score, second-best score and best index of each row of A.
+
+    desc_a [P, N, D], desc_b [P, M, D] (f32, D a power of two), valid_b
+    [P, M].  Rows of A are padded to a multiple of ``BN`` and columns of B
+    to a multiple of ``BM``; padded columns are masked like invalid ones.
+    Returns (s1, s2, i1), each [P, N].  ``interpret`` runs the kernel on
+    the CPU (tests only).
+    """
+    p, n, d = desc_a.shape
+    m = desc_b.shape[1]
+    pad_n, pad_m = (-n) % BN, (-m) % BM
+    a = jnp.pad(desc_a.astype(jnp.float32), ((0, 0), (0, pad_n), (0, 0)))
+    b = jnp.pad(desc_b.astype(jnp.float32), ((0, 0), (0, pad_m), (0, 0)))
+    vb = jnp.pad(valid_b.astype(jnp.int32), ((0, 0), (0, pad_m)))
+    np_, mp = n + pad_n, m + pad_m
+    row = pl.BlockSpec((None, BN), lambda q, i: (q, i))
+    s1, s2, i1 = pl.pallas_call(
+        partial(_top2_kernel, n_tiles=mp // BM),
+        grid=(p, np_ // BN),
         in_specs=[
-            pl.BlockSpec((_TN, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, m), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m), lambda i: (0, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, BN, d), lambda q, i: (q, i, 0)),
+            pl.BlockSpec((None, mp, d), lambda q, i: (q, 0, 0)),
+            pl.BlockSpec((None, mp), lambda q, i: (q, 0)),
         ],
-        out_specs=[
-            pl.BlockSpec((_TN, 2), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((_TN, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n + pad_n, 2), jnp.float32),
-            jax.ShapeDtypeStruct((n + pad_n, 1), jnp.int32),
-        ],
+        out_specs=[row, row, row],
+        out_shape=[jax.ShapeDtypeStruct((p, np_), jnp.float32),
+                   jax.ShapeDtypeStruct((p, np_), jnp.float32),
+                   jax.ShapeDtypeStruct((p, np_), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
-    )(a, desc_b.T, valid_b[None, :].astype(jnp.float32))
-    return top[:n], idx[:n, 0]
-
-
-@partial(jax.jit, static_argnames=("cfg", "interpret", "debug_checks"))
-def match_pallas(desc_a: jnp.ndarray, valid_a: jnp.ndarray,
-                 desc_b: jnp.ndarray, valid_b: jnp.ndarray,
-                 cfg: MatchConfig = MatchConfig(),
-                 interpret: bool = False,
-                 debug_checks: bool = False) -> Matches:
-    """Drop-in replacement for ops.match.match using the fused kernel."""
-    top, i1 = _pallas_top2(desc_a, desc_b, valid_b, interpret)
-    if debug_checks:
-        # SURVEY.md §5.2 bounds sanitizer: the kernel's in-VMEM argmax must
-        # index a real B row (padded query rows are sliced off above; the
-        # B side is never padded).
-        from jax.experimental import checkify
-        checkify.check(jnp.all((i1 >= 0) & (i1 < desc_b.shape[0])),
-                       "matcher: best-match index out of range")
-    s1, s2 = top[:, 0], top[:, 1]
-    # clip as in ops/match.py: -inf masked lanes must not produce NaN ratios
-    d1 = jnp.sqrt(jnp.maximum(2.0 - 2.0 * jnp.clip(s1, -1.0, 1.0), 0.0))
-    d2 = jnp.sqrt(jnp.maximum(2.0 - 2.0 * jnp.clip(s2, -1.0, 1.0), 1e-12))
-    ratio = d1 / d2
-    # isfinite(s2) mirrors ops/match.py: with a single valid candidate in B
-    # the second-best is -inf, d2 = inf and ratio = 0 — without the guard
-    # the ratio test passes vacuously for every query row.
-    ok = (valid_a & jnp.isfinite(s1) & jnp.isfinite(s2)
-          & (ratio < cfg.ratio_thresh) & (s1 > cfg.min_score))
-    return Matches(idx=i1, dist=d1, score=s1, ratio=ratio, ok=ok)
+        name="sift_match_top2",
+    )(a, b, vb)
+    return s1[:, :n], s2[:, :n], i1[:, :n]

@@ -3,16 +3,16 @@
 New surface relative to the reference (SURVEY.md §0: cuSIFT's estimators
 stop at homography + RGB-D rigid RANSAC): monocular localisation against
 a persistent landmark map needs perspective-n-point.  Chaining per-pair
-essential-matrix scales random-walks multiplicatively (BASELINE.md round-3
+essential-matrix scales random-walks multiplicatively (62f0428:BASELINE.md round-3
 drift campaign); PnP against landmarks that persist across many frames is
 the structural fix — each pose is measured at MAP scale directly.
 
-TPU shape, same recipe as `ops/essential.py`:
+Design, same recipe as `ops/essential.py`:
 
 * minimal 6-point hypotheses solved by the projective DLT — the 12x12
   normal-matrix null space via shifted inverse power iteration on the
   statically-unrolled Cholesky (`ops/mat3.py:solve_spd`), which vmaps
-  over the hypothesis batch as pure VPU math (no batched SVD);
+  over the hypothesis batch as elementwise math (no batched SVD);
 * rotation extracted from the projective 3x4 by Horn's quaternion method
   (`ops/geometry.py:rotation_from_cross_covariance` — the nearest
   rotation to M maximises tr(R^T M), the same eigenproblem as the

@@ -2,7 +2,7 @@
 
 Reference analog: cuSIFT's per-octave ``LaplaceMulti`` fused kernel computing
 ~6 blur levels and 5 DoG planes per octave (SURVEY.md C7, hot loop #1) and
-the ``ScaleDown`` octave seeding (C6).  TPU design: one jitted function per
+the ``ScaleDown`` octave seeding (C6).  Design: one jitted function per
 image shape; octaves are a static Python loop (unrolled at trace time), the
 levels of an octave are stacked into a single ``[S+3, H, W]`` array so every
 downstream op is batched.  No host syncs anywhere (the reference's per-octave

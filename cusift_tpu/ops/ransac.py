@@ -4,7 +4,7 @@ Reference analog (SURVEY.md C13–C15): host RNG uploads random 4-subsets,
 ``ComputeHomographies`` runs thread-per-hypothesis 8x8 Gaussian elimination,
 ``TestHomographies`` counts inliers, host argmax picks the winner, then
 ``ImproveHomography`` does CPU IRLS; cuSIFT adds the 3-point Procrustes
-RANSAC for RGB-D rigid alignment.  TPU design (SURVEY.md §2.2 row 4): a
+RANSAC for RGB-D rigid alignment.  Design (SURVEY.md §2.2 row 4): a
 static batch of hypotheses is one `vmap` over batched dense solves; inlier
 scoring is a [HYP, N] broadcast; refinement is a jitted IRLS loop.  The
 whole estimator is a single XLA program — no host in the loop.

@@ -2,55 +2,25 @@
 
 Reference analog: CUDA texture-object bilinear fetches in
 ``ExtractSiftDescriptors`` / ``ComputeOrientations`` (SURVEY.md C9–C10).
-TPU has no texture units; the equivalent is a batched gather of the four
-corner pixels plus VPU lerp math, with all keypoints' samples batched into
-one [K, S] gather so XLA emits a single fused gather kernel
-(SURVEY.md §2.2 row 3).
+Here the equivalent is a batched gather of the four corner pixels plus
+elementwise lerp math, with all keypoints' samples batched into one [K, S]
+gather so XLA emits a single fused gather kernel; on the GPU those reads
+go through L1 and L2 as the reference's texture fetches did.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 from jax import lax
-
-
-def bilinear_sample(stack: jnp.ndarray, lvl: jnp.ndarray,
-                    ys: jnp.ndarray, xs: jnp.ndarray):
-    """Sample stack[L, H, W] at float (ys, xs) on per-item integer level.
-
-    stack: [L, H, W]; lvl: [K] int32; ys, xs: [K, S] float32.
-    Returns (values [K, S], in_bounds [K, S] bool).  Out-of-bounds samples
-    return the clamped-border value; callers should zero them via the mask.
-    """
-    _, h, w = stack.shape
-    inb = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
-    ys = jnp.clip(ys, 0.0, h - 1.000001)
-    xs = jnp.clip(xs, 0.0, w - 1.000001)
-    y0 = jnp.floor(ys).astype(jnp.int32)
-    x0 = jnp.floor(xs).astype(jnp.int32)
-    y1 = jnp.minimum(y0 + 1, h - 1)
-    x1 = jnp.minimum(x0 + 1, w - 1)
-    fy = ys - y0
-    fx = xs - x0
-    l = lvl[:, None]
-    v00 = stack[l, y0, x0]
-    v01 = stack[l, y0, x1]
-    v10 = stack[l, y1, x0]
-    v11 = stack[l, y1, x1]
-    top = v00 * (1 - fx) + v01 * fx
-    bot = v10 * (1 - fx) + v11 * fx
-    return top * (1 - fy) + bot * fy, inb
 
 
 def bilinear_sample_pair(stack2: jnp.ndarray, lvl: jnp.ndarray,
                          ys: jnp.ndarray, xs: jnp.ndarray):
     """Bilinear-sample TWO channels (dx, dy) with ONE fused gather.
 
-    TPU gathers pay per *index* fetched, so the naive path (4 corners x 2
-    channels = 8 gather ops) costs ~8x this one: a single `lax.gather`
-    fetching a (2, 2, 2) slice per sample covers both corners rows and both
-    channels (measured ~4x faster for the orientation/descriptor stages).
+    A single `lax.gather` fetches a (2, 2, 2) slice per sample — both
+    corner rows, both corner columns and both channels — so one gather
+    replaces the 4 corners x 2 channels = 8 of the naive form.
 
     stack2: [L, H, W, 2]; lvl: [K] int32; ys, xs: [K, S] float32.
     Returns (v0 [K, S], v1 [K, S], in_bounds [K, S]).
@@ -81,63 +51,30 @@ def bilinear_sample_pair(stack2: jnp.ndarray, lvl: jnp.ndarray,
 
 
 def sample_grad_grid(gauss: jnp.ndarray, lvl: jnp.ndarray,
-                     ys_rows: jnp.ndarray, xs_cols: jnp.ndarray, *,
-                     span_rows: float, method: str = "auto",
-                     group: int | None = None):
+                     ys_rows: jnp.ndarray, xs_cols: jnp.ndarray):
     """Gradient sampling on an AXIS-ALIGNED per-slot grid.
 
     ys_rows [K, GR] and xs_cols [K, GC] define the grid; returns
     (dx, dy, inb) shaped [K, GR*GC] in row-major order.
-
-    The orientation stage's fixed square grid is separable, and a kernel
-    evaluating each slot as two skinny hat-weight matmuls exists
-    (ops/pallas/sampler.py:_kernel_sep) — but it MEASURED SLOWER than
-    the general kernel on v5e (14.7 vs 11.7 ms on the batch-8 ori
-    stage): the 12-lane weight/output tiles pad to full 128-lane
-    registers and the miniature MXU dots pay fixed overhead that dwarfs
-    the weight-build savings (docs/kernels.md).  All backends therefore
-    expand the grid and use the general path; the separable kernel stays
-    available for wider grids where the trade could flip.
     """
-    if method == "separable":  # opt-in: measured slower at grid 12
-        from .pallas.sampler import sample_grad_patches_sep
-        pr = -(-(int(span_rows) + 12) // 8) * 8
-        pc = -(-(int(span_rows) + 132) // 128) * 128
-        return sample_grad_patches_sep(gauss, lvl, ys_rows, xs_cols,
-                                       pr=pr, pc=pc, g=group)
     k, gr = ys_rows.shape
     gc = xs_cols.shape[1]
     ys = jnp.broadcast_to(ys_rows[:, :, None], (k, gr, gc)).reshape(k, -1)
     xs = jnp.broadcast_to(xs_cols[:, None, :], (k, gr, gc)).reshape(k, -1)
-    return sample_grad_pair(gauss, lvl, ys, xs, span_rows=span_rows,
-                            method=method, group=group)
+    return sample_grad_pair(gauss, lvl, ys, xs)
 
 
 def sample_grad_pair(gauss: jnp.ndarray, lvl: jnp.ndarray,
-                     ys: jnp.ndarray, xs: jnp.ndarray, *, span_rows: float,
-                     method: str = "auto", group: int | None = None):
+                     ys: jnp.ndarray, xs: jnp.ndarray):
     """Bilinear-sample image gradients of `gauss` at per-slot float coords.
 
-    Dispatches between the Pallas patch kernel (ops/pallas/sampler.py —
-    ~30x faster on v5e; computes central-difference gradients in-kernel so
-    no gradient planes ever hit HBM) and the XLA path (CPU, interpret, or
-    vmapped callers), which materialises gradient planes and uses a fused
-    4-corner gather.  ``span_rows``: static upper bound on the row/column
-    extent of one slot's samples; sizes the Pallas patch (+12 rows: 8 for
-    offset alignment, 1 bilinear support, 1 per side for the in-kernel
-    central difference, 1 slack).
+    Central-difference gradient planes (zero on the border rows/columns)
+    are materialised once per level stack and read with one fused
+    4-corner gather per sample.
 
     gauss: [L, H, W] blurred levels; lvl: [K] int32; ys, xs: [K, S] f32.
     Returns (dx [K, S], dy [K, S], in_bounds [K, S]).
     """
-    if method == "auto":
-        method = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if method == "pallas" and ys.ndim == 2 and ys.shape[0] % 8 == 0:
-        from .pallas.sampler import sample_grad_patches
-        pr = -(-(int(span_rows) + 12) // 8) * 8
-        pc = -(-(int(span_rows) + 132) // 128) * 128
-        return sample_grad_patches(gauss, lvl, ys, xs, pr=pr, pc=pc,
-                                   g=group)
     from .gaussian import image_gradients
     gdx, gdy = image_gradients(gauss)   # CSE'd across ori/desc inside a jit
     grad2 = jnp.stack([gdx, gdy], axis=-1)

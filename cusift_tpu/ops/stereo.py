@@ -6,7 +6,7 @@ feature into METRIC depth (z = fx * b / disparity), which removes the
 monocular scale ambiguity entirely — the depth then feeds the exact
 RGB-D tracking/keyframe/BA machinery of models/slam.py.
 
-TPU shape: the left-right match rides the same fused MXU matcher as
+Design: the left-right match rides the same matcher as
 every other match in the engine (ops/match.py); the epipolar constraints
 of a RECTIFIED pair (same row, positive disparity) are cheap post-hoc
 masks rather than a search-window restriction — a [N, M] matmul over

@@ -1,7 +1,7 @@
 """Bundle adjustment: Levenberg–Marquardt with matrix-free Schur + PCG.
 
 New surface relative to the reference (SURVEY.md §0, BASELINE north star):
-cuSIFT stops at pairwise transforms; the TPU engine adds full BA.
+cuSIFT stops at pairwise transforms; this engine adds full BA.
 
 Design (SURVEY.md §2.4 D4): the sparse normal equations are never formed.
 Per-observation Jacobian blocks (J_c [2,6], J_p [2,3]) come from `jacfwd`
@@ -14,7 +14,7 @@ system S = U - W V^-1 W^T is applied *implicitly* inside PCG:
 
 — all gathers + segment-sums, which (a) XLA fuses into dense batched ops
 and (b) distribute over a mesh by sharding observations/landmarks with one
-`psum` of camera-sized quantities over ICI (see parallel/dist_ba.py).
+`psum` of camera-sized quantities across devices (see parallel/dist_ba.py).
 Landmark back-substitution is a batched 3x3 solve.
 """
 
@@ -239,9 +239,9 @@ def _dense_schur_solve(p: BAProblem, blocks: _Blocks, b, cam_mask,
     """Explicit [6C, 6C] Schur complement + Cholesky (BAConfig.solver).
 
     At window scale (C=5 -> 30 dofs) this replaces cg_iters sequential
-    matvec rounds — pure program latency on the chip — with batched
+    matvec rounds — pure program latency on the device — with batched
     einsums over the landmark blocks and one tiny factorisation (the
-    same trade the dense pose-graph solver measured at 178 -> ~4 ms).
+    same trade as the dense pose-graph solver).
 
     f32 numerics (both measured necessary at LM damping 1e-3, where the
     naive assembly read window-BA ATE 0.27 vs the CG path's 0.20):

@@ -9,7 +9,7 @@ closures).  Residual per edge (i, j):
 Matrix-free Gauss-Newton: J v and J^T u come from `jax.jvp` / `jax.vjp` of
 the whole residual map (no sparse matrices), so the normal equations
 (J^T J + lambda I) dx = -J^T r are solved by CG with only O(E) work per
-iteration — the TPU-friendly analog of a sparse Cholesky backend.  The
+iteration — the accelerator-friendly analog of a sparse Cholesky backend.  The
 trajectory-partitioned distributed variant (SURVEY.md §2.4 D5) reuses the
 same residual map inside shard_map.
 """
@@ -121,8 +121,8 @@ def _assemble_dense(g_it: PoseGraph, n: int):
     scatter-added into the four (i, j) pose blocks.  For the keyframe-ring
     graph sizes the streaming loop solves (n <= 256, E <= a few hundred)
     this replaces the matrix-free CG path's ~max_iters*cg_iters sequential
-    matvecs (round-4 chip probe: 178 ms/call at n=48 — pure program
-    latency) with a handful of batched ops per LM iteration.
+    matvecs (pure program latency) with a handful of batched ops per LM
+    iteration.
     """
     zero12 = jnp.zeros(12)
     ri, ti = g_it.poses_r[g_it.edge_i], g_it.poses_t[g_it.edge_i]

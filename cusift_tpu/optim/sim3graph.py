@@ -18,7 +18,7 @@ a 7-vector chart that vanishes iff the error is identity; Gauss-Newton
 needs a chart, not the canonical Sim(3) log, so the translation block
 skips the W-matrix coupling (same Jacobian structure at convergence).
 
-TPU shape mirrors `optim/posegraph.py`: matrix-free J/J^T via jvp/vjp of
+Design mirrors `optim/posegraph.py`: matrix-free J/J^T via jvp/vjp of
 the whole residual map, CG on the normal equations, `lax.scan` LM loop,
 and an `axis_name` hook so the trajectory-partitioned distributed form
 (SURVEY.md §2.4 D5) is the same code under shard_map.

@@ -4,8 +4,8 @@ The hard distribution problem (SURVEY.md §2.4): landmarks + their
 observations are sharded over the mesh's "map" axis (observation-to-shard
 assignment keeps every landmark's observations colocated, so the landmark
 blocks V and the per-landmark reduction t_p stay shard-local).  Camera poses
-are replicated; the reduced camera system is all-reduced with `psum` over
-ICI and solved identically on every shard; landmark back-substitution is
+are replicated; the reduced camera system is all-reduced with `psum` across
+devices and solved identically on every shard; landmark back-substitution is
 local.  The inner solver is literally `optim.ba.lm_loop` with an axis name —
 the single-device and distributed paths share every line of math.
 """

@@ -7,7 +7,7 @@ Poses stay replicated (tiny: [N, 6] dof), edges shard by their source
 keyframe so each device owns its chunk's constraints; cross-chunk edges
 (odometry steps spanning a boundary, loop closures to any chunk) need no
 halo exchange because the only cross-device quantities are the [N, 6]
-J^T r / J^T J x vectors, each one `psum` over ICI (`optim/posegraph.py:
+J^T r / J^T J x vectors, each one `psum` across devices (`optim/posegraph.py:
 lm_loop`).  Every device then runs the identical replicated CG — the
 distributed solve is numerically the single-device solve.
 """

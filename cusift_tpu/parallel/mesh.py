@@ -1,13 +1,15 @@
 """Device mesh bootstrap (SURVEY.md §2.4 D1, D6).
 
-The reference has no distribution at all (single GPU, no NCCL/MPI); the TPU
+The reference has no distribution at all (single GPU, no NCCL/MPI); this
 engine scales through `jax.sharding.Mesh` with two logical axes:
 
 * ``frames`` — data parallelism over frames/keyframes (throughput),
 * ``map``    — sharding of landmarks/observations (memory + BA compute).
 
-One code path covers 1 chip -> multi-host pod slice: XLA picks ICI/DCN
-collectives from the mesh topology; nothing here speaks NCCL.  Multi-host
+One code path covers 1 device -> several hosts: XLA lowers the
+collectives (to NCCL on GPUs) from the mesh; nothing here speaks NCCL
+directly, and no axis assumes a link topology (the cards of one host are
+joined all to all).  Multi-host
 process bootstrap is `jax.distributed.initialize()` (no-op on one host).
 """
 

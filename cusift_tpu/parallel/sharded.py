@@ -4,7 +4,7 @@ Frame-parallel extraction: a batch of frames is sharded over the mesh's
 "frames" axis with `shard_map`; each device runs the full single-frame
 extract on its shard (embarrassingly parallel — the DP analog).  Matching
 against a keyframe database shards the database over "map" (the TP analog):
-each device scores its slice of keyframes on the MXU and an
+each device scores its slice of keyframes with one matmul and an
 `argmax`-over-`psum`-style reduction picks the winner.
 """
 

@@ -1,7 +1,7 @@
 """Host-side image plumbing.
 
 Reference analog: the ``CudaImage`` container (SURVEY.md C3) and the OpenCV
-image loading in the demo (C16).  On TPU there is no pitched-pointer
+image loading in the demo (C16).  In JAX there is no pitched-pointer
 management — `jax.device_put` of a statically-shaped array is the whole
 "Download"; this module only normalises formats and pads to canonical shapes
 so the jitted pipelines compile once per shape tier (SURVEY.md §7 hard part
@@ -15,6 +15,17 @@ import numpy as np
 # Canonical (H, W) tiers; every input is padded up to the smallest fitting
 # tier so jit caches stay small.
 SHAPE_TIERS = ((480, 640), (376, 1248), (960, 1280), (1536, 2048))
+
+
+def import_cv2(purpose: str):
+    """OpenCV, imported where user files are read or drawn (never on the
+    main path); a clear error if it is not installed."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{purpose} needs OpenCV (cv2), which is not "
+                          "installed") from e
+    return cv2
 
 
 def to_gray_float(img: np.ndarray) -> np.ndarray:

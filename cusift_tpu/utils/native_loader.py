@@ -2,7 +2,7 @@
 
 The reference's host runtime is C++ (SURVEY.md C3/C16); here the native
 piece is the disk->float32 decode + prefetch pipeline that feeds the jitted
-TPU programs.  The .so builds on demand with g++ (cached in native/build/)
+device programs.  The .so builds on demand with g++ (cached in native/build/)
 and everything degrades gracefully to a NumPy/OpenCV fallback when a
 compiler is unavailable.
 """
@@ -29,13 +29,20 @@ def _build() -> str | None:
     if (os.path.exists(_SO)
             and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
         return _SO
+    # build to a private name, then rename: processes that build at once
+    # (test workers) never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-pthread", _SRC, "-o", _SO, "-lz"]
+           "-pthread", _SRC, "-o", tmp, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return _SO
     except (subprocess.SubprocessError, FileNotFoundError):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():

@@ -1,7 +1,7 @@
 """Wall-clock timing around jitted calls.
 
 Reference analog: ``TimerGPU`` (cudaEvent pairs) / ``TimerCPU`` in
-``cudautils.h`` (SURVEY.md §5.1).  On TPU, dispatch is async; correct timing
+``cudautils.h`` (SURVEY.md §5.1).  In JAX, dispatch is async; correct timing
 requires `jax.block_until_ready` on the result.  For kernel-level traces use
 `jax.profiler.trace` (exposed via the bench harness `--profile` flag).
 """

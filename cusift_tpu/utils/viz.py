@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .image import import_cv2
+
 
 def _to_u8(img01: np.ndarray) -> np.ndarray:
     return np.clip(np.asarray(img01) * 255.0, 0, 255).astype(np.uint8)
@@ -15,7 +17,7 @@ def _to_u8(img01: np.ndarray) -> np.ndarray:
 
 def draw_keypoints(img01, feats, path: str | None = None):
     """Render valid keypoints as scale-sized circles with orientation ticks."""
-    import cv2
+    cv2 = import_cv2("drawing keypoints")
     out = cv2.cvtColor(_to_u8(img01), cv2.COLOR_GRAY2BGR)
     v = np.asarray(feats.valid)
     xs, ys = np.asarray(feats.x)[v], np.asarray(feats.y)[v]
@@ -35,7 +37,7 @@ def draw_keypoints(img01, feats, path: str | None = None):
 def draw_matches(img_a, feats_a, img_b, feats_b, matches,
                  inliers=None, path: str | None = None, max_lines: int = 200):
     """Side-by-side match visualisation (green = inlier, red = outlier)."""
-    import cv2
+    cv2 = import_cv2("drawing matches")
     a = cv2.cvtColor(_to_u8(img_a), cv2.COLOR_GRAY2BGR)
     b = cv2.cvtColor(_to_u8(img_b), cv2.COLOR_GRAY2BGR)
     h = max(a.shape[0], b.shape[0])

@@ -1,8 +1,8 @@
-// Native frame loader + prefetcher for the TPU SLAM engine.
+// Native frame loader + prefetcher for the SLAM engine.
 //
 // Reference analog: cuSIFT's host-side C++ runtime — the CudaImage
 // container's Allocate/Download path and the demo's OpenCV image loading
-// (SURVEY.md C3, C16).  On TPU the device transfer is jax.device_put; what
+// (SURVEY.md C3, C16).  Here the device transfer is jax.device_put; what
 // remains host-side and latency-critical is file I/O + decode + format
 // conversion, which this module does natively with a worker pool and a
 // bounded prefetch ring so the accelerator never waits on the disk.

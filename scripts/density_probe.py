@@ -1,9 +1,9 @@
 """How many keypoints does the bench scene yield vs texture density?
 
-The CudaSift-class calibration (BASELINE.md) assumes ~4k keypoints per
+The CudaSift-class calibration (62f0428:BASELINE.md) assumes ~4k keypoints per
 frame; the static pipeline pays the full max_kpts budget regardless of
 how many are real, so a bench scene that fills the budget is the
-workload-aligned comparison.  Run on TPU: python scripts/density_probe.py
+workload-aligned comparison.  Run: PYTHONPATH=. python scripts/density_probe.py
 """
 
 import time
@@ -13,9 +13,8 @@ import numpy as np
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from cusift_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from cusift_tpu.config import SiftConfig
     from cusift_tpu.models.sift import extract

@@ -1,8 +1,8 @@
-"""Per-stage timing of the batched extract pipeline on the real chip.
+"""Per-stage timing of the batched extract pipeline.
 
 Builds jitted programs that consume progressively more of the pipeline and
-reports the marginal cost of each stage (batch=8, honest queue-and-fetch
-timing — see BASELINE.md).  Run: python scripts/stage_times.py [--batch 8]
+reports the marginal cost of each stage (queue `iters` dispatches, then
+fetch one scalar).  Run: PYTHONPATH=. python scripts/stage_times.py
 """
 
 import argparse
@@ -23,9 +23,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from cusift_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from cusift_tpu.config import MatchConfig, SiftConfig
     from cusift_tpu.models.sift import _octave_planes, extract

@@ -3,7 +3,7 @@
 For each octave: true extrema count (finite scores), candidate budget,
 refine-survivor count, and the global valid total.  Run with different
 scenes/configs to find the config where the bench scene yields ~4k
-keypoints (BASELINE.md density note / VERDICT round-3 task 1a).
+keypoints (62f0428:BASELINE.md density note / VERDICT round-3 task 1a).
 """
 
 import argparse

@@ -1,6 +1,6 @@
 """Order-invariant comparison fixtures against the OpenCV SIFT oracle.
 
-SURVEY.md §4.2: GPU/TPU keypoint order is meaningless; compare sets by
+SURVEY.md §4.2: accelerator keypoint order is meaningless; compare sets by
 greedy bipartite matching on (x, y, sigma) within tolerance and match the
 *behaviour envelope* (>=85% overlap, descriptor cosine >= 0.9), not
 bit-exactness.

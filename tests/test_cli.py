@@ -8,6 +8,14 @@ cv2 = pytest.importorskip("cv2")
 from cusift_tpu import cli
 
 
+@pytest.fixture(autouse=True)
+def _no_persistent_cache(monkeypatch):
+    """The CLI turns on JAX's persistent compile cache for its process;
+    inside the test worker that would outlive the test."""
+    monkeypatch.setattr("cusift_tpu.utils.device.enable_compile_cache",
+                        lambda: "")
+
+
 @pytest.fixture()
 def kitti_dir(tmp_path, rng):
     d = tmp_path / "sequences" / "00"

@@ -50,8 +50,8 @@ def test_unique_position_overlap_meets_survey_bar():
     slot-level number conflates orientation multiplicity (cv2 emits
     every >= 0.8-peak orientation as its own keypoint; we cap at 2) and
     the static budget (cv2 unbounded keeps every weak extremum) —
-    measured decomposition in BASELINE.md round 4 (production budget:
-    0.884 unique vs 0.64 slot-level on the bench scene)."""
+    measured decomposition in 62f0428:BASELINE.md round 4 (production
+    budget: 0.884 unique vs 0.64 slot-level on the bench scene)."""
     from cusift_tpu.data.synthetic import textured_image
 
     img = textured_image(480, 640, seed=1, blobs=800, detail=0.25)
@@ -163,29 +163,3 @@ def test_bf16_score_parity(test_image):
     covered = np.any((d < 1.0) & (srel < 0.05), axis=1)
     assert covered.mean() >= 0.95, float(covered.mean())
 
-
-def test_fused_pyramid_hbm_extract_parity(test_image):
-    """fused_pyramid="pallas_hbm" wiring through full extract (interpret
-    mode off-TPU, models/sift.py): the fused octave kernel's total-sigma
-    taps agree with the incremental chain to ~2e-5, so the strong half of
-    the keypoint set must be preserved.  Also exercises the mixed path:
-    the 60x80 third octave falls below the kernel's min-size gate and
-    runs the XLA chain inside the same extraction."""
-    cfg = SiftConfig(max_kpts=512, max_kpts_per_octave=256, num_octaves=3,
-                     upscale=False)
-    ref = extract(test_image, cfg)
-    got = extract(test_image, SiftConfig(**{**cfg.__dict__,
-                                            "fused_pyramid": "pallas_hbm",
-                                            "fused_tile_rows": 96}))
-    vr, vg = np.asarray(ref.valid), np.asarray(got.valid)
-    assert abs(int(vg.sum()) - int(vr.sum())) <= 0.15 * max(int(vr.sum()), 1)
-    resp = np.abs(np.asarray(ref.response))[vr]
-    strong = resp >= np.median(resp)
-    xyr = np.stack([np.asarray(ref.x)[vr], np.asarray(ref.y)[vr]], -1)[strong]
-    sgr = np.asarray(ref.sigma)[vr][strong]
-    xyg = np.stack([np.asarray(got.x)[vg], np.asarray(got.y)[vg]], -1)
-    sgg = np.asarray(got.sigma)[vg]
-    d = np.linalg.norm(xyr[:, None] - xyg[None], axis=-1)
-    srel = np.abs(np.log(sgr[:, None] / np.maximum(sgg[None], 1e-9)))
-    covered = np.any((d < 1.0) & (srel < 0.05), axis=1)
-    assert covered.mean() >= 0.95, float(covered.mean())

@@ -41,3 +41,15 @@ def test_pad_to_tier(rng):
     big = rng.random((2000, 3000)).astype(np.float32)
     out2, _ = pad_to_tier(big)
     assert out2.shape == (2000, 3000)   # beyond all tiers: unchanged
+
+
+def test_import_cv2_names_the_purpose(monkeypatch):
+    """Off the main path OpenCV is optional: a missing cv2 fails with a
+    message saying what needed it."""
+    import sys
+    import pytest
+    from cusift_tpu.utils.image import import_cv2
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="drawing keypoints needs OpenCV"):
+        import_cv2("drawing keypoints")

@@ -167,7 +167,7 @@ def test_window_ba_union_anchoring_recovers():
     # measured (round 3): union recovers ~1.5x on this scene vs ~2-3x for
     # newest-anchored — the per-owner landmark inits fragment some tracks
     # under perturbed poses, which is why "newest" stays the default
-    # (VERDICT round-3 task 6: default chosen by data; see BASELINE.md)
+    # (VERDICT round-3 task 6: default chosen by data; see 62f0428:BASELINE.md)
     assert outs["union"] < err_before * 0.75
     # measured: union 0.031 vs newest 0.014 on this scene
     assert outs["union"] < outs["newest"] * 2.5 + 1e-4, outs

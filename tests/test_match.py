@@ -1,4 +1,4 @@
-"""P4 exit tests (SURVEY.md §7): MXU matcher vs brute-force oracle."""
+"""P4 exit tests (SURVEY.md §7): matcher vs brute-force oracle."""
 
 import numpy as np
 import jax.numpy as jnp

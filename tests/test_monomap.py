@@ -1,6 +1,6 @@
 """Persistent-map scale anchoring (models/monomap.py + ops/pnp.py).
 
-The structural fix for monocular scale drift (BASELINE.md round-3 drift
+The structural fix for monocular scale drift (62f0428:BASELINE.md round-3 drift
 campaign): localise frames against a persistent landmark map with PnP
 instead of chaining per-pair depth-ratio scales.  These tests drive the
 map machinery both standalone (insert -> localise round trip on synthetic
@@ -228,7 +228,7 @@ def test_mono_vo_map_anchor_tracks_sequence():
     # short-run no-harm guard: the chain itself measures ~13.9% of path on
     # this 14-frame scene (per-pair scale noise dominates both modes at
     # this length); the map's value is LONG-run drift containment
-    # (tests/test_vo_sequence.py soak + BASELINE.md round-3 campaign)
+    # (tests/test_vo_sequence.py soak + 62f0428:BASELINE.md round-3 campaign)
     assert ate < 0.16 * path
 
 

@@ -51,11 +51,11 @@ def test_up_down_sample(test_image):
 
 
 def test_blur_mxu_matches_vpu(rng):
-    """The banded-matmul (MXU) conv == the shifted-add (VPU) form.
+    """The banded-matmul conv == the shifted-add form.
 
-    On CPU precision HIGH is exact f32, so the comparison checks the
-    banded-operator construction and block stitching bit-tight; the TPU
-    bf16x3 pass adds only ~1e-7 relative (safe for DoG differences)."""
+    Both run in exact f32 (the banded matmuls at Precision.HIGHEST), so
+    the comparison checks the banded-operator construction and block
+    stitching bit-tight."""
     from cusift_tpu.ops.gaussian import blur
 
     for shape in ((96, 160), (2, 120, 130), (41, 257)):

@@ -153,7 +153,7 @@ def test_robust_kernel_rejects_outlier_loop_edge():
     Plain L2 lets one high-weight garbage edge (a false revisit claim)
     drag the whole graph BELOW its initialisation quality; the IRLS
     robust kernels bound its influence.  Measured orderings this test
-    pins (see BASELINE.md robust-kernel table): huber's linear tail
+    pins (see 62f0428:BASELINE.md robust-kernel table): huber's linear tail
     still lets the outlier pull (bounded but nonzero influence); tukey
     at a scale between the TRUE loop edge's initial residual and the
     outlier's redescends the outlier to exactly zero and lands at

@@ -91,13 +91,13 @@ def test_stereo_loop_soak_metric_drift():
 
     Same world/trajectory as the mono soak (two-plane loop): the mono
     scale chain measures 37.6% KITTI translation drift after scale
-    alignment (BASELINE.md); stereo's per-feature metric depth holds
+    alignment (62f0428:BASELINE.md); stereo's per-feature metric depth holds
     ~10% WITHOUT any alignment, through ring eviction (24 slots for ~
     40+ promotions) and loop closure.  dist_ba=True runs every windowed
     BA solve landmark-sharded over the virtual 8-device mesh — the full
     configs[4] combination (streaming dist-BA x eviction x closures) at
     soak length (VERDICT r3 task 4; the 4,541-frame single-device run
-    lives in BASELINE.md round 4).
+    lives in 62f0428:BASELINE.md round 4).
     """
     from cusift_tpu.data.evaluation import kitti_drift, \
         trajectory_path_length

@@ -5,7 +5,7 @@ synthetic two-plane circuit with a deliberate loop and a low-texture
 blur burst, driven through the sequence-scale MonoVO frontend
 (keyframe ring + essential loop closure + Sim(3) pose graph,
 models/odometry.py).  Small renders keep CPU wall-time sane; the
-real-chip long-run numbers live in BASELINE.md.
+real-chip long-run numbers live in 62f0428:BASELINE.md.
 """
 
 import numpy as np
@@ -47,7 +47,7 @@ def test_long_loop_sequence_bounded_drift():
                       loop_min_common=8)
     # ba_window=4: the production configs[4] shape (windowed BA in the
     # streaming loop) — measured t_pct 37.6 vs 43.4 without BA on this
-    # scenario (scripts/diag_drift.py, BASELINE.md round-3 notes)
+    # scenario (scripts/diag_drift.py, 62f0428:BASELINE.md round-3 notes)
     vo = MonoVO(seq.intr, sift_cfg=SIFT, vo_cfg=vo_cfg, ba_window=4)
     er, et = vo.run(iter(seq.images))
 
@@ -60,7 +60,7 @@ def test_long_loop_sequence_bounded_drift():
     # bounded drift: Sim3 ATE under 8% of path, and the closures must
     # IMPROVE on the raw chain (measured 7.3% vs 9.3% raw once the
     # genuine revisit verifies — top-3 retrieval + wide temporal gap +
-    # H/E planar guard; see BASELINE.md round-3 notes)
+    # H/E planar guard; see 62f0428:BASELINE.md round-3 notes)
     assert ate < 0.08 * path, (ate, path)
     raw_r, raw_t = np.stack(vo.poses_r), np.stack(vo.poses_t)
     ate_raw = ate_rmse(raw_r, raw_t, seq.poses_r, seq.poses_t,
@@ -336,7 +336,7 @@ def test_keyframe_referenced_tracking_mode():
     """track_ref="keyframe": frames track the last keyframe, not the
     previous frame — the pair baseline grows ~kf_every-fold and the scale
     chain steps once per keyframe.  Ships opt-in: measured ~parity with
-    the prev-frame chain on the synthetic soaks (BASELINE.md), where the
+    the prev-frame chain on the synthetic soaks (62f0428:BASELINE.md), where the
     wider baseline's parallax gain is offset by reduced match overlap."""
     seq = two_plane_sequence(n_frames=16, h=240, w=320, seed=3,
                              motion_scale=0.9, path="loop", amplitude=6.0)
